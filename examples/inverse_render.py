@@ -3,18 +3,12 @@
 The capability the reference never had (BASELINE.json north star):
 because the whole pipeline is differentiable, we can perturb sphere
 albedos, render the damaged scene, and drive the parameters back to the
-target by gradient descent on the pixel loss — on one chip or a full
-mesh (gradients all-reduce over ICI automatically, parallel/dist.py).
+target by gradient descent on the pixel loss — on one device or a full
+mesh (gradients all-reduce across the mesh automatically,
+parallel/dist.py). Gradients are XLA's autodiff of the jnp path.
 
-Run:  python examples/inverse_render.py [--steps 40] [--mesh 4,2]
-      python examples/inverse_render.py --backend pallas   # kernel-speed
-Logs loss to stderr; writes before/after/target PNGs to --outdir.
-
-`--backend pallas` runs BOTH the forward render and the gradient replay
-as compiled Pallas TPU kernels (ops/pallas_grad.py) — the north-star
-differentiable fast path, ~6x the jnp path's step rate on a v5e at the
-bench workload. `--backend jnp` (default) is the autodiff oracle and
-runs anywhere, including the CPU interpreter.
+Run:  python examples/inverse_render.py [--steps 40] [--mesh 2,2]
+Logs loss to stderr; writes target/recovered PNGs to --outdir.
 """
 
 from __future__ import annotations
@@ -39,10 +33,7 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=64)
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--mesh", default=None, help="P[,S] device mesh")
-    ap.add_argument("--backend", choices=("jnp", "pallas"), default="jnp",
-                    help="pallas = forward AND backward as compiled TPU "
-                         "kernels (interpret mode off-TPU)")
-    ap.add_argument("--outdir", default="/tmp")
+    ap.add_argument("--outdir", default="inverse_out")
     args = ap.parse_args()
     os.makedirs(args.outdir, exist_ok=True)
 
@@ -68,19 +59,9 @@ def main() -> int:
         focus_dist=1.5,
     )
     key = jax.random.key(0)
-    use_pallas = args.backend == "pallas"
-    interpret = jax.devices()[0].platform != "tpu"
-    if use_pallas:
-        from ray_tracing_in_one_weekend_tpu.ops import pallas_grad, pallas_render
-
-        pallas_kw = dict(tile=1024, bwd_tile=256, interpret=interpret)
-        target = pallas_render.render_pallas_distributed(
-            scene, cam, seed=0, mesh=mesh, tile=1024, interpret=interpret
-        )
-    else:
-        target = dist.render_image_distributed(
-            scene, cam, key, mesh=mesh, chunk_size=2048
-        )
+    target = dist.render_image_distributed(
+        scene, cam, key, mesh=mesh, chunk_size=2048
+    )
 
     # Damage the albedos of the three visible spheres.
     params = dist.scene_params(scene)
@@ -91,20 +72,10 @@ def main() -> int:
 
     before_err = float(jnp.abs(params["albedo"][1] - true_albedo[1]).sum())
 
-    work = None  # warm-start carry: previous step's cost map
     for step in range(args.steps):
-        if use_pallas:
-            # The warm carry (ops/pallas_grad.py): each step's primal
-            # pre-sorts its lanes by the PREVIOUS step's measured cost
-            # map — pure scheduling, identical loss/gradients.
-            (loss, work), grads = pallas_grad.render_grads_pallas(
-                params, scene, cam, target, seed=0, mesh=mesh,
-                work_hint=work, return_work=True, **pallas_kw
-            )
-        else:
-            loss, grads = dist.render_grads(
-                params, scene, cam, target, key, mesh, chunk_size=2048
-            )
+        loss, grads = dist.render_grads(
+            params, scene, cam, target, key, mesh, chunk_size=2048
+        )
         # albedo-only SGD (geometry is already correct in this demo)
         params["albedo"] = jnp.clip(
             params["albedo"] - args.lr * grads["albedo"], 0.0, 1.0
@@ -118,29 +89,16 @@ def main() -> int:
         file=sys.stderr,
     )
 
-    try:
-        from PIL import Image
+    from ray_tracing_in_one_weekend_tpu.ops.image import to_uint8
+    from ray_tracing_in_one_weekend_tpu.parallel.dist import scene_with_params
+    from ray_tracing_in_one_weekend_tpu.utils.png import write_png
 
-        from ray_tracing_in_one_weekend_tpu.ops.image import to_uint8
-        from ray_tracing_in_one_weekend_tpu.parallel.dist import scene_with_params
-
-        recovered_scene = scene_with_params(scene, params)
-        if use_pallas:
-            final = pallas_render.render_pallas_distributed(
-                recovered_scene, cam, seed=0, mesh=mesh, tile=1024,
-                interpret=interpret,
-            )
-        else:
-            final = dist.render_image_distributed(
-                recovered_scene, cam, key, mesh=mesh, chunk_size=2048
-            )
-        for name, img in (("target", target), ("recovered", final)):
-            Image.fromarray(np.asarray(to_uint8(img))).save(
-                f"{args.outdir}/inverse_{name}.png"
-            )
-        print(f"wrote {args.outdir}/inverse_*.png", file=sys.stderr)
-    except ImportError:
-        pass
+    final = dist.render_image_distributed(
+        scene_with_params(scene, params), cam, key, mesh=mesh, chunk_size=2048
+    )
+    for name, img in (("target", target), ("recovered", final)):
+        write_png(np.asarray(to_uint8(img)), f"{args.outdir}/inverse_{name}.png")
+    print(f"wrote {args.outdir}/inverse_*.png", file=sys.stderr)
 
     return 0 if after_err < before_err * 0.5 else 1
 

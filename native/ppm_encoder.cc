@@ -7,7 +7,7 @@
 // this encoder is a single pass over the pixel buffer with a
 // precomputed decimal-string table, bound into utils/ppm.py via ctypes.
 //
-// Build: native/build.sh  ->  native/libppm_encoder.so
+// Build: native/build.sh  ->  native/build/libppm_encoder.so (or on first use)
 
 #include <cstdint>
 #include <cstdio>

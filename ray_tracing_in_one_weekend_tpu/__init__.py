@@ -1,11 +1,11 @@
-"""TPU-native differentiable path tracer.
+"""Differentiable path tracer in JAX.
 
 A brand-new JAX/XLA/Pallas implementation of the capabilities of the
 C++/CUDA "Ray Tracing in One Weekend" reference
 (kouei/ray-tracing-in-one-weekend): camera ray generation with defocus
 blur, ray-sphere intersection, lambertian/metal/dielectric scattering, a
 depth-limited iterative bounce loop, stratified per-pixel multi-sampling,
-and gamma-corrected PPM output — re-designed TPU-first:
+and gamma-corrected PPM output — designed for array hardware:
 
 * structure-of-arrays scene pytree (no virtual dispatch; masked
   `jnp.where` select over a material-type integer),
@@ -14,8 +14,9 @@ and gamma-corrected PPM output — re-designed TPU-first:
 * an iterative `lax.fori_loop` bounce loop with a done-mask (the array
   form of the reference's iterative GPU integrator,
   reference: src/gpu/camera.h:112-138),
-* a Pallas TPU kernel over tiled pixel blocks for the hot path,
-* `shard_map` over a device mesh for multi-chip/multi-host scaling,
+* a Pallas GPU kernel (Triton route) over blocks of pixel lanes for
+  the hot path,
+* `shard_map` over a device mesh for multi-device/multi-host scaling,
 * full differentiability: gradients flow from rendered pixels back to
   sphere centers, radii, albedos, fuzz and IOR.
 """

@@ -1,6 +1,6 @@
 """Camera model: derived viewport constants + batched ray generation.
 
-TPU-native re-expression of the reference camera
+Array re-expression of the reference camera
 (reference: src/gpu/camera.h:11-110). The reference derives
 `pixel00_loc`, `pixel_delta_u/v` and the defocus-disk basis in a
 `new_camera<<<1,1>>>` kernel; here the same derivation runs on host at
@@ -20,21 +20,21 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ray_tracing_in_one_weekend_tpu.ops import sampling
 from ray_tracing_in_one_weekend_tpu.ops import vecmath as vm
+from ray_tracing_in_one_weekend_tpu.utils.pytree import pytree_dataclass, static_field
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     """Derived camera constants (reference: src/gpu/camera.h:28-35,53-110)."""
 
     # static config (hashable; part of the jit cache key)
-    image_width: int = struct.field(pytree_node=False)
-    image_height: int = struct.field(pytree_node=False)
-    samples_per_pixel: int = struct.field(pytree_node=False)
-    max_depth: int = struct.field(pytree_node=False)
+    image_width: int = static_field()
+    image_height: int = static_field()
+    samples_per_pixel: int = static_field()
+    max_depth: int = static_field()
 
     # traced array data (differentiable camera parameters)
     center: jnp.ndarray  # camera origin (== lookfrom)

@@ -3,8 +3,8 @@
 The reference builds its world as heap objects behind virtual `hittable*`
 / `material*` pointers, constructed on-device by a single CUDA thread
 (reference: src/gpu/main.cu:18-75, src/gpu/hittable_list.h:8-66). Virtual
-dispatch does not exist on TPU, and data-dependent object counts break
-XLA's static shapes — so the TPU-native design is:
+dispatch has no array form, and data-dependent object counts break
+XLA's static shapes — so the design here is:
 
 * the scene is a pytree of flat arrays (SoA): centers, radii, material
   parameters and an integer material type, padded to a static,
@@ -27,7 +27,8 @@ from typing import Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ray_tracing_in_one_weekend_tpu.utils.pytree import pytree_dataclass
 
 # Material type codes (replaces virtual dispatch on material*,
 # reference: src/gpu/material.h:10-16).
@@ -35,12 +36,12 @@ LAMBERTIAN = 0
 METAL = 1
 DIELECTRIC = 2
 
-# Cover scene: 1 ground + 22*22 grid + 3 heroes = 488; pad to the next
-# multiple of 128 so per-sphere axes map cleanly onto TPU lanes.
+# Cover scene: 1 ground + 22*22 grid + 3 heroes = 488; padded to 512, a
+# power of two and a multiple of 128, so per-sphere axes tile evenly.
 COVER_SCENE_SLOTS = 512
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scene:
     """SoA sphere scene. All arrays share the leading slot axis [N]."""
 

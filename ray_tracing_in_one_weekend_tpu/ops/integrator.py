@@ -4,14 +4,14 @@ The reference's CPU integrator is recursive (reference: src/cpu/main.cc:12-30);
 its GPU integrator is the iterative rewrite carrying a running
 attenuation product through a fixed-depth loop
 (reference: src/gpu/camera.h:112-138). The iterative form is exactly the
-TPU-friendly formulation: here it becomes a `lax.fori_loop` over bounce
+array-friendly formulation: here it becomes a `lax.fori_loop` over bounce
 depth, batched over ALL rays at once, carrying
 
     (origin, direction, attenuation, radiance, alive, keys)
 
 with an `alive` mask instead of per-thread early exit (SURVEY.md §7 hard
-part (b): CUDA tolerates divergence via early return; a TPU carries a
-done-mask and eats the wasted lanes).
+part (b): CUDA tolerates divergence via early return; a batched array
+program carries a done-mask and eats the wasted lanes).
 
 Per-iteration semantics (matching reference: src/gpu/camera.h:117-137):
 * miss         -> radiance += attenuation * sky_gradient, ray retires

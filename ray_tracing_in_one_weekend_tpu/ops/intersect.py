@@ -4,16 +4,17 @@ The reference finds the closest hit with a sequential scan over objects
 behind virtual `hittable::hit` calls, shrinking `closest_so_far`
 (reference: src/gpu/hittable_list.h:49-65) and solving the half-b
 quadratic per sphere (reference: src/gpu/sphere.h:15-44). Sequential
-scans and virtual dispatch are the two things a TPU cannot do, so the
-TPU-native formulation evaluates ALL rays against ALL spheres at once as
-a static `[R, N]` computation and takes a masked argmin over the sphere
-axis.
+scans and virtual dispatch have no batched-array form, so this path
+evaluates ALL rays against ALL spheres at once as a static `[R, N]`
+computation and takes a masked argmin over the sphere axis. (The Pallas
+kernel, ops/pallas_render.py, runs the reference's sequential scan per
+lane instead.)
 
 The quadratic terms are arranged so the cross terms become two
-`[R, 3] @ [3, N]` matmuls (`o . C` and `d . C`) — XLA maps those onto the
-MXU and fuses the surrounding elementwise work onto the VPU — instead of
-materializing the naive `[R, N, 3]` origin-minus-center tensor, which
-would triple HBM traffic on the hottest op in the renderer:
+`[R, 3] @ [3, N]` matmuls (`o . C` and `d . C`) that XLA fuses with the
+surrounding elementwise work, instead of materializing the naive
+`[R, N, 3]` origin-minus-center tensor, which would triple device-memory
+traffic on the hottest op of this path:
 
     oc        = o - C                      (never materialized)
     a         = |d|^2
@@ -37,10 +38,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ray_tracing_in_one_weekend_tpu.models.scene import Scene
 from ray_tracing_in_one_weekend_tpu.ops import vecmath as vm
+from ray_tracing_in_one_weekend_tpu.utils.pytree import pytree_dataclass
 
 # Sentinel "no hit" distance. Large but finite so that min/argmin and the
 # downstream arithmetic never produce inf - inf = NaN.
@@ -50,7 +51,7 @@ T_MISS = 1e30
 T_MIN_EPS = 1e-3
 
 
-@struct.dataclass
+@pytree_dataclass
 class HitRecord:
     """Array-of-rays hit record (reference: src/gpu/hittable.h:10-27),
     with the hit sphere's material parameters pre-gathered (the SoA
@@ -88,12 +89,11 @@ def sphere_hit_ts(
     o_sq = vm.length_squared(origin)[:, None]  # [R, 1]
     c_sq_minus_r_sq = (vm.length_squared(centers) - radius * radius)[None, :]  # [1, N]
 
-    # The two MXU cross terms. Precision matters: TPU matmuls default to
-    # bf16 multiplies, whose ~3-digit mantissa perturbs root positions by
-    # ~1e-2 — far beyond the 1e-3 shadow-acne epsilon — and visibly
-    # darkens the render with spurious self-hits. HIGHEST forces full f32
-    # (multi-pass on the MXU; measured faster than an elementwise
-    # broadcast contraction, which is HBM-bound on [R, N] intermediates).
+    # The two matmul cross terms. Precision matters: a GPU f32 matmul may
+    # run in TF32 by default, whose 10-bit mantissa perturbs root
+    # positions by ~1e-2 — far beyond the 1e-3 shadow-acne epsilon — and
+    # visibly darkens the render with spurious self-hits. HIGHEST forces
+    # full f32 products.
     d_dot_c = jnp.matmul(
         direction, centers.T, precision=jax.lax.Precision.HIGHEST
     )  # [R, N]
@@ -134,14 +134,12 @@ def hit_scene(
     (reference: src/gpu/hittable_list.h:49-65)."""
     ts = sphere_hit_ts(scene, origin, direction, t_min, t_max)  # [R, N]
 
-    # Winner selection via ONE-HOT MATMUL instead of argmin + per-ray
-    # gathers: TPU has no fast per-lane gather — XLA lowers `take` with
-    # per-ray indices to slow dynamic-gather loops, while a [R,N] @ [N,K]
-    # product of the one-hot mask against the packed parameter matrix
-    # rides the MXU (same trick as the Pallas kernel). Gradients flow to
-    # the winning sphere's parameters through the matmul exactly as they
-    # would through a gather (one-hot rows are constants of the backward
-    # pass, like the gather indices were).
+    # Winner selection via a ONE-HOT MATMUL of the mask against the
+    # packed parameter matrix, [R,N] @ [N,K], instead of argmin + per-ray
+    # gathers. Gradients flow to the winning sphere's parameters through
+    # the matmul exactly as they would through a gather (one-hot rows
+    # are constants of the backward pass, like the gather indices were).
+    # Whether a plain gather is faster on the GPU is ROADMAP S2.
     t_min_r = jnp.min(ts, axis=-1, keepdims=True)  # [R, 1]
     hit = t_min_r[:, 0] < T_MISS * 0.5
     onehot = (ts <= t_min_r).astype(ts.dtype)  # [R, N]
@@ -165,11 +163,11 @@ def hit_scene(
         ],
         axis=-1,
     )
-    # HIGHEST: a bf16-precision product would round the gathered scene
-    # parameters themselves (centers, radii, albedo) to bf16.
+    # HIGHEST: a TF32 product would round the gathered scene parameters
+    # themselves (centers, radii, albedo) to 10 mantissa bits.
     hit_params = jnp.matmul(
         onehot, params, precision=jax.lax.Precision.HIGHEST
-    )  # [R, 10] — MXU
+    )  # [R, 10]
     t = jnp.sum(onehot * ts, axis=-1)  # selected t (grad flows into ts)
     sphere_index = jnp.argmax(onehot, axis=-1).astype(jnp.int32)
 

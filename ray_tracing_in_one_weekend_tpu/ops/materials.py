@@ -1,9 +1,9 @@
 """Branchless material scattering.
 
 The reference dispatches `material::scatter` virtually per ray
-(reference: src/gpu/material.h:10-104). Virtual dispatch does not exist
-on TPU; instead all three material responses are computed for every lane
-on the VPU and the winner is selected by `jnp.where` on the integer
+(reference: src/gpu/material.h:10-104). Virtual dispatch has no array
+form; instead all three material responses are computed for every lane
+and the winner is selected by `jnp.where` on the integer
 `mat_type`. With only three cheap materials this costs less than the
 divergence it avoids, and it keeps every shape static.
 

@@ -1,6 +1,6 @@
 """Full-image render loop (pure-jnp reference path, jit-compiled).
 
-This is the TPU re-expression of the reference's render kernel
+This is the array re-expression of the reference's render kernel
 (reference: src/gpu/camera.h:169-195 and the CUDA launch
 src/gpu/main.cu:113-132): instead of one CUDA thread per pixel over a
 16x16 block grid, pixels are flattened, split into static chunks
@@ -31,8 +31,8 @@ from ray_tracing_in_one_weekend_tpu.ops import sampling
 from ray_tracing_in_one_weekend_tpu.ops.integrator import trace_rays
 
 # Default pixels per chunk. [chunk, 512-sphere] f32 intermediates are
-# 32 MB at 16384 — comfortably inside HBM while long enough to keep the
-# VPU busy. Tests/CPU override with smaller values.
+# 32 MB at 16384 — comfortably inside device memory while long enough to
+# keep the device busy. Tests/CPU override with smaller values.
 DEFAULT_CHUNK = 16384
 
 

@@ -6,7 +6,7 @@ src/cpu-multi-threading/rtweekend.h:27-31) and per-pixel curand streams on
 GPU seeded as `curand_init(seed, pixel_index, 0)`
 (reference: src/gpu/camera.h:186-187).
 
-The TPU-native design replaces both with counter-based threefry keys:
+This design replaces both with counter-based threefry keys:
 ``key = fold_in(fold_in(base_key, global_pixel_index), sample_index)`` and
 per-bounce/per-use subkeys derived with further `fold_in` calls. This is
 

@@ -1,11 +1,11 @@
 """Vector math on trailing-axis-3 arrays.
 
-TPU-native re-expression of the reference's `vec3` class
+Array re-expression of the reference's `vec3` class
 (reference: src/gpu/vec3.h:10-121, src/cpu/vec3.h:9-140). Instead of a
 scalar 3-vector class with operator overloads, every op here is a pure
 function on arrays of shape ``[..., 3]`` so the whole renderer is
-batched over rays from the start — XLA vectorizes over the leading axes
-onto the VPU (8x128 lanes).
+batched over rays from the start — XLA vectorizes over the leading
+axes.
 
 All functions are autodiff-safe: `unit_vector` and `refract` guard the
 zero-length / negative-discriminant lanes with the double-`where` trick

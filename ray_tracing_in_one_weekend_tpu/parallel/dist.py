@@ -6,7 +6,7 @@ parallelism is 32 CPU threads over scanlines
 per pixel (reference: src/gpu/main.cu:113-118), plus a MANUAL offline
 workflow where the author rendered the same scene at several seeds and
 merged the PNGs (reference: gallery/gpu/image11-source-images/). The
-TPU-native design automates exactly those two decompositions over a
+design here automates exactly those two decompositions over a
 `jax.sharding.Mesh`:
 
 * **pixel axis** (`'pixels'`) — the image's flat pixel space is sharded
@@ -17,7 +17,7 @@ TPU-native design automates exactly those two decompositions over a
 * **sample axis** (`'samples'`) — every device renders the SAME pixels
   with a disjoint slice of the sample budget, then a `psum`-mean over
   the axis merges them: the reference's manual PNG-merge workflow, over
-  ICI instead of a file manager.
+  the device interconnect instead of a file manager.
 
 Because every random draw is keyed by GLOBAL (pixel, sample) indices
 (ops/sampling.py), the distributed image is bit-identical to the
@@ -27,7 +27,7 @@ parallel, so the mesh layout is purely a throughput choice.
 Gradients: `render_grads` / `train_step` differentiate straight through
 `shard_map` — parameter gradients of replicated scene arrays come out of
 the backward pass `psum`-reduced over both axes automatically (XLA
-inserts the collectives; they ride ICI).
+inserts the collectives).
 
 Multi-host: `jax.distributed.initialize()` (utils/cli.py --multihost)
 gives one process per host; `render_distributed` then shards over ALL
@@ -140,7 +140,7 @@ def render_distributed(
             differentiable=differentiable,
         )
         # Mean over the sample axis = the reference's offline PNG merge
-        # (reference: gallery/gpu/image11-source-images/), over ICI.
+        # (reference: gallery/gpu/image11-source-images/), as a collective.
         return jax.lax.pmean(colors, SAMPLE_AXIS)
 
     # check_vma=False: the integrator's fori_loop carries start as
@@ -186,7 +186,7 @@ def fetch_image(img) -> np.ndarray:
     Single-process: a plain device fetch. Multi-process (after
     `jax.distributed.initialize`): each host holds only its addressable
     shards of the global framebuffer, so `np.asarray` would fail —
-    gather the full image over DCN instead (the TPU-native form of the
+    gather the full image across hosts instead (the distributed form of the
     reference's single-host managed-memory readback,
     reference: src/gpu/main.cu:101,109-110; host 0 then owns the PPM
     write, utils/cli.py)."""
@@ -205,7 +205,7 @@ def fetch_image(img) -> np.ndarray:
 # is the sharded render above; the backward flows through shard_map, and
 # the gradients of the REPLICATED scene arrays are psum-reduced over the
 # mesh by construction (this is the DP gradient all-reduce analogue,
-# SURVEY.md §2.2, riding ICI).
+# SURVEY.md §2.2).
 # ---------------------------------------------------------------------------
 
 # Scene leaves that receive gradients (the continuous parameters;

@@ -2,7 +2,7 @@
 
 The reference's only runtime checking is the fail-stop
 `checkCudaErrors` macro (reference: src/gpu/cuda_utility.h:8-18) and it
-has no NaN detection at all. The TPU-native equivalents (SURVEY.md §5
+has no NaN detection at all. The equivalents here (SURVEY.md §5
 "race detection / sanitizers"):
 
 * data races are removed by construction (stateless counter-based RNG,

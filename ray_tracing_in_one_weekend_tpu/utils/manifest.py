@@ -87,13 +87,16 @@ def render_sources_digest(root: str | None = None) -> str:
 
 
 def _git_head(root: str) -> str:
+    """HEAD, with '-dirty' when the tree has uncommitted changes, or
+    'unknown' outside a git checkout."""
     try:
-        return subprocess.run(
-            ["git", "rev-parse", "HEAD"], cwd=root,
+        out = subprocess.run(
+            ["git", "describe", "--always", "--dirty", "--abbrev=40"], cwd=root,
             capture_output=True, text=True, timeout=10,
         ).stdout.strip()
-    except Exception:
-        return "unknown"
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    return out or "unknown"
 
 
 def load(gallery_dir: str) -> dict:

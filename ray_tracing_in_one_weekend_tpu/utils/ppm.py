@@ -8,15 +8,19 @@ the reference's entire CLI contract (`./main > out.ppm`,
 reference: script/windows/rt-utility.psm1:33-47).
 
 Encoding prefers the native C++ encoder (native/ppm_encoder.cc via
-ctypes) when built — text-formatting a 1920x1080 frame in pure Python is
-tens of ms of interpreter time; the native path is a single buffer pass.
-Falls back to a vectorized NumPy implementation.
+ctypes), built from source into native/build/ at first use when a C++
+compiler is on PATH (or ahead of time by native/build.sh) —
+text-formatting a 1920x1080 frame in pure Python is tens of ms of
+interpreter time; the native path is a single buffer pass. Without a
+compiler it falls back to a NumPy/Python implementation.
 """
 
 from __future__ import annotations
 
 import io
 import os
+import shutil
+import subprocess
 from typing import IO
 
 import numpy as np
@@ -25,31 +29,54 @@ _NATIVE = None
 _NATIVE_TRIED = False
 
 
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+_NATIVE_SRC = os.path.join(_NATIVE_DIR, "ppm_encoder.cc")
+_NATIVE_LIB = os.path.join(_NATIVE_DIR, "build", "libppm_encoder.so")
+
+
+def _build_native() -> bool:
+    """Compile native/ppm_encoder.cc into native/build/ (the same command
+    as native/build.sh). False when there is no source or compiler."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None or not os.path.exists(_NATIVE_SRC):
+        return False
+    os.makedirs(os.path.dirname(_NATIVE_LIB), exist_ok=True)
+    # Build under a private name, then rename: concurrent first uses
+    # (test workers) never load a half-written library.
+    tmp = f"{_NATIVE_LIB}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O2", "-fPIC", "-shared", "-o", tmp, _NATIVE_SRC],
+        capture_output=True,
+    )
+    if proc.returncode != 0:
+        return False
+    os.replace(tmp, _NATIVE_LIB)
+    return True
+
+
 def _load_native():
-    """Find and bind native/libppm_encoder.so (built by native/build.sh)."""
+    """Bind native/build/libppm_encoder.so, building it on first use."""
     global _NATIVE, _NATIVE_TRIED
     if _NATIVE_TRIED:
         return _NATIVE
     _NATIVE_TRIED = True
     import ctypes
 
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    for candidate in (
-        os.path.join(here, "native", "libppm_encoder.so"),
-        os.path.join(here, "libppm_encoder.so"),
-    ):
-        if os.path.exists(candidate):
-            lib = ctypes.CDLL(candidate)
-            lib.ppm_encode_p3.restype = ctypes.c_longlong
-            lib.ppm_encode_p3.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.c_int,
-                ctypes.c_int,
-                ctypes.POINTER(ctypes.c_char),
-                ctypes.c_longlong,
-            ]
-            _NATIVE = lib
-            break
+    if not os.path.exists(_NATIVE_LIB) and not _build_native():
+        return None
+    lib = ctypes.CDLL(_NATIVE_LIB)
+    lib.ppm_encode_p3.restype = ctypes.c_longlong
+    lib.ppm_encode_p3.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_char),
+        ctypes.c_longlong,
+    ]
+    _NATIVE = lib
     return _NATIVE
 
 

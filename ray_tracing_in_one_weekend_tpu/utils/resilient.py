@@ -13,7 +13,7 @@ to an unfailed run. No partial state is lost because `accumulate` is
 functional: a batch that raises or returns non-finite pixels leaves the
 previous `RenderState` untouched.
 
-Failure model: transient device faults — preempted/restarted TPU
+Failure model: transient device faults — preempted/restarted device
 runtime calls, interconnect hiccups, or data corruption surfacing as
 non-finite pixels. Deterministic failures (a bug) exhaust the retry
 budget and re-raise: fail-stop remains the backstop, matching the

@@ -1,25 +1,20 @@
-"""Render a preset workload with the Pallas kernel and commit-ready
-artifact + manifest entry (VERDICT r3 items 6 and 8; r4 item 2).
+"""Render a preset workload into a gallery artifact + manifest entry.
 
-Usage: python scripts/render_artifact.py <preset> [spp] [--spp-batch N]
+Usage: python scripts/render_artifact.py <preset> [spp] [--spp-batch N] [--out-dir DIR]
 
 Renders PRESETS[<preset>] (e.g. `gpu` = 1920x1080, 500 spp, defocus
-0.6 deg — reference: src/gpu/camera.h:58-62) through the warm
-checkpoint accumulator (utils/checkpoint.py): sample batches accumulate
-ON DEVICE in float32, each batch after the first warm-starts from the
-carried cost map (ops/pallas_render.py work_hint — bit-identical
-pixels, single-pass near-ideal-occupancy schedules), and the only
-per-batch host traffic is a scalar completion barrier. The full image
-is fetched exactly once at the end. This replaced the round-4 version
-that fetched the full framebuffer per batch and re-accumulated in
-float64 on host, which ran the reference's primary GPU workload at
-half the kernel's measured rate (VERDICT r4 weak #2).
+0.6 deg — reference: src/gpu/camera.h:58-62) through the checkpoint
+accumulator (utils/checkpoint.py): sample batches accumulate ON DEVICE
+in float32, the only per-batch host traffic is a completion barrier,
+and the full image is fetched once at the end.
 
 Writes gallery/cover_<W>x<H>_<spp>spp_<preset>.png and records the
-render in gallery/MANIFEST.json with the render-sources digest so
-tests/test_golden_fullres.py can detect stale artifacts. The recorded
-`mrays_per_s` is the steady-state rate (batches after compile/warm-up);
-`mrays_per_s_incl_compile` is the whole-wall-clock rate.
+render in gallery/MANIFEST.json with the render-sources digest (so
+tests/test_golden_fullres.py can detect stale artifacts), the device
+and, on a GPU, the card's name and power limit and the timings:
+`mrays_per_s` is the steady-state rate over the batches after the
+first, which includes compilation; with a single batch there is no
+steady window and only `mrays_per_s_incl_compile` is recorded.
 """
 
 from __future__ import annotations
@@ -30,36 +25,14 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-
 import numpy as np
 
 
-def render_preset(preset: str, spp: int | None = None, spp_batch: int = 100,
-                  out_dir: str = "gallery") -> str:
-    import jax.numpy as jnp
-    from PIL import Image
+def accumulate_timed(scene, cam, seed, spp, spp_batch, backend, label):
+    """Accumulate `spp` samples in batches; returns (state, batch_seconds)."""
+    import jax
 
-    from ray_tracing_in_one_weekend_tpu.ops.image import to_uint8
     from ray_tracing_in_one_weekend_tpu.utils import checkpoint as ckpt
-    from ray_tracing_in_one_weekend_tpu.utils import manifest
-    from ray_tracing_in_one_weekend_tpu.utils.config import (
-        PRESETS,
-        make_camera_from_config,
-        make_scene_from_config,
-    )
-
-    config = PRESETS[preset]
-    spp = config.samples_per_pixel if spp is None else spp
-    scene = make_scene_from_config(config)
-    cam = make_camera_from_config(config)
-    interpret = jax.devices()[0].platform != "tpu"
-
-    w, h = cam.image_width, cam.image_height
-    print(f"artifact[{preset}]: {w}x{h} spp={spp} depth={cam.max_depth} "
-          f"platform={jax.devices()[0].platform}", file=sys.stderr)
 
     t0 = time.perf_counter()
     state = ckpt.new_state(cam)
@@ -67,59 +40,109 @@ def render_preset(preset: str, spp: int | None = None, spp_batch: int = 100,
     while int(state.spp_done) < spp:
         b = min(spp_batch, spp - int(state.spp_done))
         tb = time.perf_counter()
-        state = ckpt.accumulate(
-            state, scene, cam, config.seed, b,
-            backend="pallas", interpret=interpret,
-        )
-        float(jnp.sum(state.spp_done))  # scalar completion barrier
-        # Accumulation runs ON DEVICE; force it so the next batch's
-        # timing is honest (spp_done alone does not depend on accum).
+        state = ckpt.accumulate(state, scene, cam, seed, b, backend=backend)
         jax.block_until_ready(state.accum)
         batch_times.append(time.perf_counter() - tb)
-        done = int(state.spp_done)
-        print(f"artifact[{preset}]: samples {done}/{spp} "
+        print(f"{label}: samples {int(state.spp_done)}/{spp} "
               f"(+{b} in {batch_times[-1]:.2f}s, "
               f"{time.perf_counter() - t0:.0f}s total)", file=sys.stderr)
-    img = state.image
-    u8 = np.asarray(to_uint8(img))
-    t = time.perf_counter() - t0
-    mrays_incl = w * h * spp / t / 1e6
-    # Steady state: batches after compile (batch 1) and the warm-variant
-    # compile (batch 2). Falls back to all-but-first, then to total.
-    skip = 2 if len(batch_times) > 2 else (1 if len(batch_times) > 1 else 0)
-    steady_t = sum(batch_times[skip:])
-    steady_rays = w * h * (spp - skip * spp_batch)
-    mrays = (steady_rays / steady_t / 1e6) if steady_t > 0 else mrays_incl
+    return state, batch_times
+
+
+def rate_fields(w, h, spp, spp_batch, batch_times) -> dict:
+    """Manifest timing fields. The steady rate skips the first batch
+    (compilation) and exists only when a later batch does."""
+    total = sum(batch_times)
+    out = {
+        "render_seconds": round(total, 1),
+        "batch_seconds": [round(x, 2) for x in batch_times],
+        "mrays_per_s_incl_compile": round(w * h * spp / total / 1e6, 1),
+    }
+    if len(batch_times) > 1:
+        steady_rays = w * h * (spp - min(spp_batch, spp))
+        out["mrays_per_s"] = round(steady_rays / sum(batch_times[1:]) / 1e6, 1)
+    return out
+
+
+def device_fields(backend: str) -> dict:
+    """Where the render ran: backend label, device kind, and the card's
+    name and power limit as nvidia-smi reports them (GPU only)."""
+    import jax
+
+    from ray_tracing_in_one_weekend_tpu.utils.platform import gpu_name_and_power_limit
+
+    dev = jax.devices()[0]
+    label = backend
+    if backend == "pallas":
+        label = "pallas-interpret" if dev.platform == "cpu" else f"pallas-{dev.platform}"
+    out = {"backend": label, "device_kind": dev.device_kind}
+    card = gpu_name_and_power_limit()
+    if card:
+        out["card"] = card
+    return out
+
+
+def render_preset(preset: str, spp: int | None = None, spp_batch: int = 100,
+                  out_dir: str = "gallery", backend: str = "pallas",
+                  scene=None, name: str | None = None, extra: dict | None = None):
+    """Render and record one artifact; returns (name, u8 image)."""
+    import jax
+
+    from ray_tracing_in_one_weekend_tpu.ops.image import to_uint8
+    from ray_tracing_in_one_weekend_tpu.utils import manifest
+    from ray_tracing_in_one_weekend_tpu.utils.config import (
+        PRESETS,
+        make_camera_from_config,
+        make_scene_from_config,
+    )
+    from ray_tracing_in_one_weekend_tpu.utils.platform import enable_compile_cache
+    from ray_tracing_in_one_weekend_tpu.utils.png import write_png
+
+    enable_compile_cache()
+    config = PRESETS[preset]
+    spp = config.samples_per_pixel if spp is None else spp
+    scene = make_scene_from_config(config) if scene is None else scene
+    cam = make_camera_from_config(config)
+    w, h = cam.image_width, cam.image_height
+    label = f"artifact[{preset}/{backend}]"
+    print(f"{label}: {w}x{h} spp={spp} depth={cam.max_depth}", file=sys.stderr)
+
+    state, batch_times = accumulate_timed(
+        scene, cam, config.seed, spp, spp_batch, backend, label
+    )
+    u8 = np.asarray(to_uint8(state.image))
 
     os.makedirs(out_dir, exist_ok=True)
-    name = f"cover_{w}x{h}_{spp}spp_{preset}.png"
-    Image.fromarray(u8).save(os.path.join(out_dir, name))
+    name = name or f"cover_{w}x{h}_{spp}spp_{preset}.png"
+    write_png(u8, os.path.join(out_dir, name))
+    # Rates are device metrics: recorded for a GPU run only.
+    on_gpu = jax.devices()[0].platform == "gpu"
+    rates = rate_fields(w, h, spp, spp_batch, batch_times) if on_gpu else {}
     manifest.record(out_dir, name, {
         "preset": preset,
         "width": w, "height": h, "spp": spp,
         "max_depth": cam.max_depth,
         "seed": config.seed,
-        "backend": "pallas-interpret" if interpret else "pallas-tpu",
-        "render_seconds": round(t, 1),
-        "mrays_per_s": round(mrays, 1),
-        "mrays_per_s_incl_compile": round(mrays_incl, 1),
-        "batch_seconds": [round(x, 2) for x in batch_times],
+        **device_fields(backend),
+        **rates,
         "mean_u8": round(float(u8.mean()), 3),
+        **(extra or {}),
     })
-    print(f"artifact[{preset}]: {name} in {t:.0f}s "
-          f"({mrays:.1f} Mrays/s steady, {mrays_incl:.1f} incl compile), "
+    print(f"{label}: {name} in {sum(batch_times):.1f}s {rates}, "
           f"mean {u8.mean():.1f}", file=sys.stderr)
-    return name
+    return name, u8
 
 
 def main() -> None:
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    preset = args[0] if args else "gpu"
-    spp = int(args[1]) if len(args) > 1 else None
-    spp_batch = 100
-    if "--spp-batch" in sys.argv:
-        spp_batch = int(sys.argv[sys.argv.index("--spp-batch") + 1])
-    render_preset(preset, spp, spp_batch)
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("preset", nargs="?", default="gpu")
+    ap.add_argument("spp", nargs="?", type=int, default=None)
+    ap.add_argument("--spp-batch", type=int, default=100)
+    ap.add_argument("--out-dir", default="gallery")
+    args = ap.parse_args()
+    render_preset(args.preset, args.spp, args.spp_batch, out_dir=args.out_dir)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
 Runs as one of N processes of a multi-host CPU rendezvous
 (`jax.distributed.initialize` over gloo — SURVEY.md §2.3's multi-host
-DCN item, exercised on CPU exactly as a TPU pod would run it). Each
+DCN item, exercised on CPU exactly as a multi-host cluster would run it). Each
 process owns `local_devices` virtual CPU devices; the global mesh spans
 all processes. The sharded render's global framebuffer is gathered with
 `dist.fetch_image` and process 0 compares it against the single-device
@@ -74,19 +74,14 @@ full = dist.fetch_image(img)
 oracle = np.asarray(render_image(sc, cam, 0, chunk_size=64))
 np.testing.assert_allclose(full, oracle, atol=1e-6)
 
-# Pallas on a GLOBAL (cross-process) mesh is impossible in interpret
-# mode: the Pallas TPU interpreter coordinates simulated devices through
-# a PROCESS-LOCAL shared-memory barrier sized to the global device
-# count, so a multi-process interpret run deadlocks waiting for devices
-# that live in the other process (re-verified 2026-08-21: both workers
-# hang at the pallas_call until SIGTERM). The strongest runnable form is
-# below: each process runs the SHARDED Pallas kernel over a mesh of its
-# own 4 local devices, inside the live multi-process runtime (gloo
-# rendezvous up, collectives initialized), and byte-compares against the
-# process-local jnp oracle. Cross-shard correctness of the kernel on an
-# 8-device mesh is covered by tests/test_pallas_dist.py — the kernel's
-# lane streams key on GLOBAL ids, so shard placement (same-process or
-# cross-process) cannot change its output.
+# The Pallas kernel (interpreted: these are CPU devices) runs SHARDED
+# over a mesh of this process's own 4 local devices, inside the live
+# multi-process runtime (gloo rendezvous up, collectives initialized),
+# and is byte-compared against the process-local single-device kernel.
+# Cross-shard correctness of the kernel on an 8-device mesh is covered by
+# tests/test_pallas_dist.py — the kernel's lane streams key on GLOBAL
+# ids, so shard placement (same-process or cross-process) cannot change
+# its output.
 local_mesh = dist.make_mesh((2, 2), devices=jax.local_devices())
 pallas_img = render_pallas_distributed(
     sc, cam, seed=0, mesh=local_mesh, tile=128, interpret=True, warm=False

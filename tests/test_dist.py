@@ -122,3 +122,55 @@ def test_grads_match_unsharded():
         np.testing.assert_allclose(
             np.asarray(g1[f]), np.asarray(g2[f]), rtol=1e-4, atol=1e-6
         )
+
+
+# Finite-difference check of every differentiable leaf through the full
+# training step on the 8-device mesh: train_step's update with lr = 1
+# exposes the mesh-reduced gradient (p - p_new), which must match central
+# differences of the same deterministic sharded loss. Indices and
+# epsilons avoid visibility discontinuities (tests/test_grad.py).
+_FD_CASES = {
+    "albedo": (1e-3, 1e-5, 0.02, [(1, 2), (3, 0)]),
+    "center": (3e-4, 2e-4, 0.2, [(1, 1), (1, 2)]),
+    "radius": (3e-4, 2e-4, 0.2, [(1,)]),
+    "fuzz": (1e-3, 1e-4, 0.1, [(3,)]),
+    "ior": (1e-3, 1e-4, 0.1, [(2,)]),
+}
+
+
+@pytest.mark.parametrize("field", dist.DIFF_FIELDS)
+def test_train_step_gradient_matches_fd(field):
+    eps, atol, rtol, indices = _FD_CASES[field]
+    sc = scene_lib.from_spheres(
+        centers=[[0.0, -100.5, -1.0], [0.0, 0.0, -1.0], [-1.0, 0.0, -1.0], [1.0, 0.0, -1.0]],
+        radii=[100.0, 0.5, 0.5, 0.5],
+        mat_types=[0, 0, 2, 1],
+        albedos=[[0.8, 0.8, 0.0], [0.1, 0.2, 0.5], [1.0, 1.0, 1.0], [0.8, 0.6, 0.2]],
+        fuzzes=[0.0, 0.0, 0.0, 0.2],
+        pad_to=8,
+    )
+    cam = make_camera(
+        image_width=24, aspect_ratio=2.0, samples_per_pixel=2, max_depth=4,
+        vfov_degrees=90.0, lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0),
+        defocus_angle_degrees=0.0, focus_dist=1.0,
+    )
+    mesh = dist.make_mesh((4, 2))
+    target = jnp.zeros((cam.image_height, cam.image_width, 3), jnp.float32)
+    params = dist.scene_params(sc)
+    _, new = dist.train_step(params, sc, cam, target, KEY, mesh, chunk_size=64, lr=1.0)
+    grad = np.asarray(params[field]) - np.asarray(new[field])
+    assert np.all(np.isfinite(grad))
+
+    loss = jax.jit(
+        lambda p: dist.render_loss(p, sc, cam, target, KEY, mesh, 64)
+    )
+    for idx in indices:
+        def at(delta):
+            x = np.asarray(params[field]).copy()
+            x[idx] += delta
+            return float(loss({**params, field: jnp.asarray(x)}))
+
+        fd = (at(eps) - at(-eps)) / (2 * eps)
+        assert np.isclose(grad[idx], fd, atol=atol, rtol=rtol), (
+            f"{field}[{idx}]: train_step gradient {grad[idx]:.6f} vs FD {fd:.6f}"
+        )

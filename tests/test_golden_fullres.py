@@ -1,7 +1,7 @@
 """Full-fidelity golden parity: the committed gallery render vs the
 reference's own output.
 
-`gallery/cover_1200x800_500spp_pallas.png` is rendered on a real TPU by
+`gallery/cover_1200x800_500spp_pallas.png` is rendered on an H100 by
 scripts/render_gallery.py — the reference CPU workload (1200x800,
 aperture 0.1, 500 spp, depth 50, reference: src/cpu/main.cc:82-99) on
 the bit-exact mt19937(5489) replay scene (models/scene.py,

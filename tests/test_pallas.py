@@ -14,7 +14,11 @@ import pytest
 
 from ray_tracing_in_one_weekend_tpu.models import scene as scene_lib
 from ray_tracing_in_one_weekend_tpu.models.camera import make_camera
-from ray_tracing_in_one_weekend_tpu.ops.pallas_render import pack_scene, render_pallas
+from ray_tracing_in_one_weekend_tpu.ops.pallas_render import (
+    live_slots,
+    pack_scene,
+    render_pallas,
+)
 from ray_tracing_in_one_weekend_tpu.ops.render import render
 
 KEY = jax.random.key(0)
@@ -42,11 +46,8 @@ def test_pack_scene_layout():
     np.testing.assert_allclose(p[4, ~act], -1.0)
     np.testing.assert_allclose(p[0:3, ~act], 0.0)
     assert p[11, :4].sum() == 4.0 and p[11, 4:].sum() == 0.0  # active mask
-    # homogeneous o-term rows: (-2c, |c|^2 - r^2)
-    np.testing.assert_allclose(p[12:15], -2.0 * p[0:3])
-    np.testing.assert_allclose(
-        p[15], (p[0:3] ** 2).sum(axis=0) - p[4], rtol=1e-6
-    )
+    np.testing.assert_array_equal(p[12:16], 0.0)  # pad rows
+    assert int(live_slots(sc)) == 4  # the sphere loop stops at slot 4
 
 
 def test_sky_only_matches_exactly():
@@ -288,66 +289,71 @@ def test_black_lambertian_absorbs_exactly():
     assert np.all(img_j[cy - 3 : cy + 4, cx - 3 : cx + 4] == 0.0)
 
 
-def test_sweep_ts_negative_disc_is_miss():
-    """NaN-as-miss contract of `_sweep_ts` at the unit level.
-
-    The kernel relies on sqrt(disc < 0) = NaN falling through both
-    `>` selects to T_MISS (IEEE compare-with-NaN is false). That is
-    load-bearing on the compiler never enabling fast-math NaN rewrites
-    (ADVICE r3): this test shoots rays with guaranteed-negative
-    discriminant (pointing directly away from every sphere) through the
-    REAL `_sweep_ts` code path in a minimal interpret-mode kernel and
-    asserts every candidate t — including the padding slots, whose
-    r^2 = -1 makes disc <= -1 for ANY unit ray — comes out T_MISS.
-    A head-on control ray checks the hit branch still produces the
-    analytic root.
-    """
-    import functools
-
+def test_closest_hit_negative_disc_is_miss():
+    """Closest-so-far sweep at the unit level, on the Triton route in
+    interpret mode: rays with a negative discriminant against every
+    sphere (pointing away) — and every padding slot, whose r^2 = -1
+    makes disc <= -1 for ANY unit ray — come out T_MISS with slot 0, and
+    a head-on ray hits at the analytic root."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as pl_triton
 
     from ray_tracing_in_one_weekend_tpu.ops.pallas_render import (
-        CHUNK,
-        P_ROWS,
         T_MISS,
-        _sweep_ts,
+        _closest_hit,
     )
 
     sc = scene_lib.single_sphere_scene(pad_to=128)  # sphere (0,0,-1) r=0.5
-    p_mat = pack_scene(sc)
-    n = p_mat.shape[1]
+    pt = pack_scene(sc).T
+    n = pt.shape[0]
     tile = 128
 
-    # Lane 0: straight up (misses, disc < 0). Lane 1: straight back
-    # (+z, disc < 0). Lane 2: head-on at the sphere (hits, t = 0.5).
-    o = np.zeros((3, tile), np.float32)
+    # Lane 0: straight up (misses). Lane 1: straight back (+z, misses).
+    # Lane 2: head-on at the sphere (hits, t = 0.5). Rest: +x, misses.
     d = np.zeros((3, tile), np.float32)
     d[1, 0] = 1.0
     d[2, 1] = 1.0
     d[2, 2] = -1.0
-    d[0, 3:] = 1.0  # remaining lanes: +x, also guaranteed misses
+    d[0, 3:] = 1.0
 
-    def kernel(pt_ref, o_ref, d_ref, out_ref, *, n_chunks):
-        t_cs = _sweep_ts(o_ref[:, :], d_ref[:, :], pt_ref, n_chunks)
-        out_ref[:, :] = jnp.concatenate(t_cs, axis=0)
+    def kernel(pt_ref, d_ref, t_ref, k_ref):
+        o = tuple(jnp.zeros((tile,), jnp.float32) for _ in range(3))
+        dd = (d_ref[0, :], d_ref[1, :], d_ref[2, :])
+        t, k = _closest_hit(o, dd, pt_ref, n, 1e-3)
+        t_ref[...] = t
+        k_ref[...] = k
 
-    ts = pl.pallas_call(
-        functools.partial(kernel, n_chunks=n // CHUNK),
-        out_shape=jax.ShapeDtypeStruct((n, tile), jnp.float32),
-        interpret=pltpu.InterpretParams(),
-    )(jnp.asarray(p_mat.T), jnp.asarray(o), jnp.asarray(d))
-    ts = np.asarray(ts)
+    t, k = pl.pallas_call(
+        kernel,
+        out_shape=[jax.ShapeDtypeStruct((tile,), jnp.float32),
+                   jax.ShapeDtypeStruct((tile,), jnp.int32)],
+        compiler_params=pl_triton.CompilerParams(num_warps=4),
+        interpret=True,
+    )(pt, jnp.asarray(d))
+    t, k = np.asarray(t), np.asarray(k)
+    assert np.all(np.isfinite(t)), "NaNs must not escape the sweep"
+    miss = np.ones(tile, bool)
+    miss[2] = False
+    assert np.all(t[miss] == T_MISS) and np.all(k[miss] == 0)
+    np.testing.assert_allclose(t[2], 0.5, rtol=1e-6)
+    assert k[2] == 0
 
-    assert np.all(np.isfinite(ts)), "NaNs must not escape _sweep_ts"
-    # Every (sphere, ray) pair is a miss except (sphere 0, lane 2).
-    hit_mask = np.zeros((n, tile), bool)
-    hit_mask[0, 2] = True
-    assert np.all(ts[~hit_mask] == T_MISS), (
-        "negative-discriminant rays (incl. all r^2=-1 padding slots) "
-        "must yield T_MISS"
+
+def test_closest_hit_keeps_first_of_equal_roots():
+    """Two identical spheres: the strict `t < t_best` keeps the first
+    slot, as the reference's shrinking closest_so_far interval does."""
+    from ray_tracing_in_one_weekend_tpu.ops.pallas_render import _closest_hit
+
+    sc = scene_lib.from_spheres(
+        centers=[[0, 0, -2], [0, 0, -2], [0, 0, -5]], radii=[0.5, 0.5, 1.0],
+        mat_types=[0, 1, 0], pad_to=128,
     )
-    np.testing.assert_allclose(ts[0, 2], 0.5, rtol=1e-6)
+    pt = pack_scene(sc).T
+    o = (jnp.zeros(4), jnp.zeros(4), jnp.zeros(4))
+    d = (jnp.zeros(4), jnp.zeros(4), -jnp.ones(4))
+    t, k = _closest_hit(o, d, pt, 3, 1e-3)
+    np.testing.assert_allclose(np.asarray(t), 1.5, rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(k), 0)
 
 
 def test_budget_schedule_tuple_bit_identical():
@@ -552,3 +558,102 @@ def test_warm_cache_eviction_bound():
     for spp in range(1, pr._WORK_CACHE_MAX + 4):
         render_pallas(sc, cam, seed=0, tile=128, spp=spp, interpret=True)
     assert len(pr._WORK_CACHE) == pr._WORK_CACHE_MAX
+
+
+# ---------------------------------------------------------------------------
+# The Triton-route wrapper: tile/padding/scalar shapes, lowering for CUDA,
+# per-material parity with the jnp oracle.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tile, ok", [
+    (128, True), (256, True), (1024, True),
+    (64, False), (100, False), (384, False), (0, False),
+])
+def test_check_tile_power_of_two_multiple_of_128(tile, ok):
+    from ray_tracing_in_one_weekend_tpu.ops.pallas_render import _check_tile
+
+    if ok:
+        _check_tile(tile)
+    else:
+        with pytest.raises(ValueError, match="power of two"):
+            _check_tile(tile)
+
+
+def test_kernel_input_shapes_are_triton_blocks():
+    """Every block the kernel loads as a vector is a power of two; the
+    camera vector is padded to one."""
+    from ray_tracing_in_one_weekend_tpu.ops import pallas_render as pr
+
+    cam = _cam(width=24, spp=2)
+    v = pr.pack_camera(cam)
+    assert v.shape == (pr.CAM_LEN,) and pr.CAM_LEN == 32
+    assert v[19] == 24.0 and v[20] == np.float32(pr.T_MIN_EPS)
+    np.testing.assert_array_equal(v[21:], 0.0)
+    s = np.asarray(pr._pass_scalars(3, 0, 7, 4))
+    assert s.shape == (pr.N_SCALARS,) and s.dtype == np.int32
+    assert list(s[:5]) == [3, 0, 7, 0, 4]
+    for rows in (pr.SF_ROWS, pr.SI_ROWS, pr.P_ROWS, pr.N_SCALARS):
+        assert rows & (rows - 1) == 0
+    assert pr._num_warps(128) == 4 and pr._num_warps(512) == 8
+
+
+def test_lanes_pad_to_whole_tiles_and_dead_lanes_finish():
+    """Lane buffers pad the pixel count to whole tiles; pad lanes are
+    born finished and never change the image."""
+    from ray_tracing_in_one_weekend_tpu.ops import pallas_render as pr
+
+    sf, si = pr._init_state(0, 256, 200, 4)
+    assert sf.shape == (pr.SF_ROWS, 256) and si.shape == (pr.SI_ROWS, 256)
+    started = np.asarray(si[pr._SI_STARTED])
+    assert np.all(started[:200] == 0) and np.all(started[200:] == 4)
+    np.testing.assert_array_equal(np.asarray(si[pr._SI_PIX]), np.arange(256))
+    sc = scene_lib.single_sphere_scene(pad_to=128)
+    cam = _cam(width=20, spp=2)  # 200 pixels: 56 pad lanes at tile 128
+    img = np.asarray(render_pallas(sc, cam, seed=0, tile=128, interpret=True))
+    assert img.shape == (10, 20, 3) and np.isfinite(img).all()
+
+
+def test_kernel_lowers_to_triton_for_cuda():
+    """Cross-platform lowering of the whole render program for CUDA: the
+    kernel becomes Triton custom calls, one per pass, with no host
+    callback (the compiled path never falls back to the interpreter)."""
+    from ray_tracing_in_one_weekend_tpu.ops import pallas_render as pr
+
+    sc = scene_lib.cover_scene(0)
+    cam = _cam(width=64, spp=4)
+    n = cam.image_width * cam.image_height
+    text = pr._render_single_jit.trace(
+        sc, jnp.asarray(pr.pack_camera(cam)), jnp.zeros(2, jnp.int32),
+        jnp.zeros((2, 1), jnp.int32), tile=128, spp=4, max_depth=8,
+        budget=12, n_passes=3, interpret=False, n_pixels=n, padded=2048,
+    ).lower(lowering_platforms=("cuda",)).as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 3
+    assert "callback" not in text.lower()
+
+
+@pytest.mark.parametrize("mat, kw", [
+    (0, dict(albedos=[[0.7, 0.3, 0.2]])),
+    (1, dict(albedos=[[0.8, 0.6, 0.2]], fuzzes=[0.3])),
+    (2, dict(iors=[1.5])),
+], ids=["lambertian", "metal", "dielectric"])
+def test_material_parity_with_jnp(mat, kw):
+    """One sphere of each material over a diffuse ground: the Triton-
+    route kernel (interpreted) and the jnp oracle agree in channel means
+    and 4x4 block means (independent streams, so within MC noise)."""
+    sc = scene_lib.from_spheres(
+        centers=[[0.0, -100.5, -1.0], [0.0, 0.0, -1.0]], radii=[100.0, 0.5],
+        mat_types=[0, mat],
+        albedos=[[0.5, 0.5, 0.5], kw.pop("albedos", [[1.0, 1.0, 1.0]])[0]],
+        fuzzes=[0.0, *kw.pop("fuzzes", [0.0])],
+        iors=[1.5, *kw.pop("iors", [1.5])],
+        pad_to=128,
+    )
+    cam = _cam(width=32, spp=32)
+    img_p = np.asarray(render_pallas(sc, cam, seed=0, tile=256, interpret=True))
+    img_j = np.asarray(render(sc, cam, KEY, chunk_size=512))
+    np.testing.assert_allclose(
+        img_p.mean(axis=(0, 1)), img_j.mean(axis=(0, 1)), atol=0.015
+    )
+    blocks = lambda x: x.reshape(4, 4, 8, 4, 3).mean(axis=(1, 3))  # noqa: E731
+    assert np.abs(blocks(img_p) - blocks(img_j)).mean() < 0.03
